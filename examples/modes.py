@@ -2,7 +2,7 @@
 (/root/reference/examples/modes.rs analog): Single pair-by-pair loops vs
 the batched texts/patterns paths, same match sets.
 
-Run: JAX_PLATFORMS=cpu python examples/modes.py   (or on TPU)
+Run: JAX_PLATFORMS=cpu python examples/modes.py   (or on the GPU)
 """
 
 import sys
@@ -13,7 +13,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from sassy_tpu import Searcher, profiles  # noqa: E402
+from sassy_jax import Searcher, profiles  # noqa: E402
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 

@@ -1,14 +1,14 @@
-"""Measure the sharded path's overhang (alpha) fallback penalty.
+"""Measure the sharded path's overhang (alpha) penalty.
 
 The sharded engine's documented limit (parallel/sharded.py docstring):
-with ``alpha`` set, the scan inside shard_map runs as the XLA lax.scan
-instead of the Pallas kernel (the overhang tail-tile fast path is
-single-chip only). This script quantifies that penalty on the real chip:
-a 1-device ('pat','text') mesh, same patterns/text/k, alpha=None (Pallas)
-vs alpha=0.5 (XLA scan), steady-state best-of-reps.
+with ``alpha`` set, selection inside shard_map is position-level, one
+pattern at a time (the overhang tail-tile fast path is single-card only).
+This script quantifies that penalty on the card: a 1-device ('pat','text')
+mesh, same patterns/text/k, alpha=None (word-level fast path) vs alpha=0.5
+(position-level overhang path), steady-state best-of-reps.
 
 Usage: python scripts/bench_sharded_alpha.py [mb] [reps]
-Writes the measured ratio to stdout; record it in docs/ROOFLINE.md.
+Writes the measured ratio to stdout; record it in PERF.md.
 """
 
 import sys
@@ -28,8 +28,8 @@ def main() -> int:
 
     import jax
 
-    from sassy_tpu.parallel import ShardedSearch, ShardedText, make_mesh
-    from sassy_tpu.profiles import Iupac
+    from sassy_jax.parallel import ShardedSearch, ShardedText, make_mesh
+    from sassy_jax.profiles import Iupac
 
     rng = np.random.default_rng(5)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -42,7 +42,7 @@ def main() -> int:
     st = ShardedText(prof, text)
 
     results = {}
-    for label, alpha in (("pallas (alpha=None)", None), ("xla (alpha=0.5)", 0.5)):
+    for label, alpha in (("fast (alpha=None)", None), ("overhang (alpha=0.5)", 0.5)):
         ss = ShardedSearch(mesh=mesh, cap=1 << 12, bcap=1 << 10)
         t0 = time.perf_counter()
         got = ss.candidates_batch(prof, pats, st, k, alpha=alpha)
@@ -58,9 +58,9 @@ def main() -> int:
         print(f"{label:22s}: first={warm:6.1f}s steady={best*1e3:8.1f} ms "
               f"= {gbps:6.2f} GB/s agg ({nm} candidates)")
 
-    ratio = results["xla (alpha=0.5)"] / results["pallas (alpha=None)"]
+    ratio = results["overhang (alpha=0.5)"] / results["fast (alpha=None)"]
     print(f"sharded overhang penalty: {ratio:.2f}x "
-          f"(XLA-scan fallback vs Pallas fast path, {mb} MB, Q=4, k={k})")
+          f"(overhang path vs fast path, {mb} MB, Q=4, k={k})")
     return 0
 
 

@@ -19,9 +19,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from sassy_tpu.ops import batch as B
-    from sassy_tpu.ops.myers_xla import _kernels, pattern_inputs_np
-    from sassy_tpu.profiles import Iupac
+    from sassy_jax.ops import batch as B
+    from sassy_jax.ops.myers_xla import _kernels, pattern_inputs_np
+    from sassy_jax.profiles import Iupac
 
     Q = int(sys.argv[1]) if len(sys.argv) > 1 else 96
     MB = int(sys.argv[2]) if len(sys.argv) > 2 else 64
@@ -50,26 +50,8 @@ def main():
     M = per[0][0].shape[0]
     halo = M + k
     ts = B.TextSet([text])
-    lens = ts.lens
-    total_chars = sum(lens)
-    target = max(4 * halo, -(-total_chars // 4096), 4 * 32)
-    p_cnt = prof.planes
-    per_word = (2 * p_cnt + 12) * 4096
-    budget = 15 * (1 << 20) - 4 * M * 4096 - (1 << 19)
-    w_lim = max(32, budget // per_word)
-    from sassy_tpu.ops.myers_xla import _bucket_words, _cdiv
-
-    w_chars = min(
-        _bucket_words(max(_cdiv(max(lens), 32), 1)),
-        _bucket_words(_cdiv(target, 32)),
-        eng.w_max_words, w_lim,
-    ) * 32
-    pieces, planes_all, tv_all = ts.packed(prof, 0, halo, w_chars, 1024)
-    T_all = planes_all.shape[1]
-    n_pos = w_chars
-    t_chunk = max(1, eng.cell_budget // max(1, Q * n_pos))
-    t_chunk = max(1024, (t_chunk // 1024) * 1024)
-    t_chunk = min(t_chunk, len(pieces))
+    w_chars, pad_mult, t_chunk, _ = eng.plan(ts, prof, M, 0, halo, Q)
+    pieces, planes_all, tv_all = ts.packed(prof, 0, halo, w_chars, pad_mult)
     nchunks = -(-len(pieces) // t_chunk)
     print(f"Q={Q} text={MB}MB w_chars={w_chars} pieces={len(pieces)} "
           f"t_chunk={t_chunk} chunks={nchunks}")

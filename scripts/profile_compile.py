@@ -1,7 +1,7 @@
 """Attribute cold first-call compile time at the headline shape.
 
-Round-3 verdict: cold first search at the 1 GiB headline shape compiled for
-~314 s (round 1: 83.6 s). This script measures where that time goes:
+Measures where the cold first search at the 1 GiB headline shape spends
+its compile time:
 
 - runs the exact headline call (23bp, k=3, 1 GiB device text) with a FRESH
   persistent-cache dir (pass --cold) or the default warm cache,
@@ -30,7 +30,7 @@ def main():
         log2n = int(sys.argv[sys.argv.index("--n") + 1])
     if cold:
         cachedir = tempfile.mkdtemp(prefix="sassy_coldcache_")
-        os.environ["SASSY_JAX_CACHE"] = cachedir
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = cachedir
         print(f"[cold] fresh cache dir {cachedir}")
 
     import jax
@@ -46,9 +46,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from sassy_tpu.ops.myers_xla import PreparedText
-    from sassy_tpu.profiles import Iupac
-    from sassy_tpu.search import make_engine
+    from sassy_jax.ops.myers_xla import PreparedText
+    from sassy_jax.profiles import Iupac
+    from sassy_jax.search import make_engine
 
     n = 1 << log2n
     rng = np.random.default_rng(42)
@@ -60,7 +60,7 @@ def main():
     text_dev.block_until_ready()
 
     prof = Iupac()
-    eng = make_engine("pallas" if jax.default_backend() == "tpu" else "xla")
+    eng = make_engine("auto")
     t0 = time.perf_counter()
     prep = PreparedText(prof, text_dev)
     prep.planes.block_until_ready()

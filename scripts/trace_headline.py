@@ -20,9 +20,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from sassy_tpu.ops.myers_xla import PreparedText
-    from sassy_tpu.profiles import Iupac
-    from sassy_tpu.search import make_engine
+    from sassy_jax.ops.myers_xla import PreparedText
+    from sassy_jax.profiles import Iupac
+    from sassy_jax.search import make_engine
 
     outdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/trace_headline"
     n = 1 << 30
@@ -35,7 +35,7 @@ def main():
     np.asarray(text_dev[:1])
 
     prof = Iupac()
-    eng = make_engine("pallas")
+    eng = make_engine("auto")
     prep = PreparedText(prof, text_dev)
     pcodes = prof.encode(pattern)
     # warm
@@ -59,7 +59,7 @@ def main():
     for e in ev:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             nm = e["args"].get("name", "")
-            if "TPU" in nm and "pid" in e:
+            if "/device:GPU" in nm and "pid" in e:
                 devpids.add(e["pid"])
     agg = defaultdict(float)
     cnt = defaultdict(int)

@@ -20,8 +20,8 @@ sys.path.insert(0, ".")
 def main():
     import jax
 
-    from sassy_tpu.ops import batch as B
-    from sassy_tpu.profiles import Iupac
+    from sassy_jax.ops import batch as B
+    from sassy_jax.profiles import Iupac
 
     Q = int(sys.argv[1]) if len(sys.argv) > 1 else 96
     MB = int(sys.argv[2]) if len(sys.argv) > 2 else 100
@@ -68,7 +68,7 @@ def main():
     for e in ev:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             nm = e["args"].get("name", "")
-            if "TPU" in nm and "pid" in e:
+            if "/device:GPU" in nm and "pid" in e:
                 devpids.add(e["pid"])
     agg = defaultdict(float)
     cnt = defaultdict(int)

@@ -1,30 +1,23 @@
-"""Pallas kernel conformance in interpret mode (CPU).
+"""Pallas engine conformance with the kernel in interpret mode (CPU).
 
-Small cases only — interpret mode executes the kernel step-by-step in
-Python. Real-hardware conformance + perf run via bench.py on TPU.
+Small cases only — the Pallas interpreter is slow. The compiled kernel is
+checked against ``scan_core`` on the GPU by chip_smoke.py.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-os.environ.setdefault("SASSY_PALLAS_INTERPRET", "1")
-
-from sassy_tpu import Searcher, profiles  # noqa: E402
+from sassy_jax import Searcher, profiles
+from sassy_jax.ops.myers_pallas import PallasEngine
 
 
 @pytest.fixture(scope="module")
 def engines():
-    import jax
-
-    if jax.default_backend() != "tpu" and os.environ.get("SASSY_PALLAS_INTERPRET") != "1":
-        pytest.skip("no TPU and interpret mode disabled")
-    return None
+    return PallasEngine(interpret=True)
 
 
 def test_pallas_matches_numpy_small(engines):
-    sp = Searcher(profiles.Iupac(), rc=True, alpha=0.5, engine="pallas")
+    sp = Searcher(profiles.Iupac(), rc=True, alpha=0.5, engine=engines)
     sn = Searcher(profiles.Iupac(), rc=True, alpha=0.5, engine="numpy")
     rng = np.random.default_rng(5)
     bases = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -41,7 +34,7 @@ def test_pallas_matches_numpy_small(engines):
 
 @pytest.mark.slow
 def test_pallas_ascii_mode(engines):
-    sp = Searcher(profiles.Ascii(case_sensitive=False), engine="pallas")
+    sp = Searcher(profiles.Ascii(case_sensitive=False), engine=engines)
     sn = Searcher(profiles.Ascii(case_sensitive=False), engine="numpy")
     a = sp.search(b"Hello", b"say hello There HELLo", 1)
     b = sn.search(b"Hello", b"say hello There HELLo", 1)

@@ -3,20 +3,18 @@ pattern state.
 
 The reference supports patterns up to ~1000 bp at GB/s (doc/abstract.md:
 20-22); engines here bucket pattern rows (myers_xla._bucket_rows) and the
-Pallas kernel switches from a statically unrolled row loop to
-``lax.fori_loop`` above 64 rows (myers_pallas.py row dispatch). These
-tests pin correctness for that regime on every engine; throughput rows
-for m in {128, 256, 512, 1000} live in evals/ (run on hardware).
+Pallas kernel switches from register-carried rows to a ``fori_loop`` over
+rows with a global-memory carry scratch above 64 rows
+(myers_pallas.UNROLL_ROWS). These tests pin correctness for that regime
+on every engine; throughput rows for m in {128, 256, 512, 1000} live in
+evals/ (run on the GPU).
 """
-
-import os
 
 import numpy as np
 import pytest
 
-os.environ.setdefault("SASSY_PALLAS_INTERPRET", "1")
-
-from sassy_tpu import Searcher, Strand, profiles  # noqa: E402
+from sassy_jax import Searcher, Strand, profiles
+from sassy_jax.ops.myers_pallas import PallasEngine
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -47,7 +45,9 @@ def test_pallas_fori_loop_rows_vs_oracle(m, k):
     oracle exactly, including a planted near-match and the RC strand."""
     rng = np.random.default_rng(m)
     pat, text = _planted_case(rng, m, 4 * m, k, k // 2)
-    sp = Searcher(profiles.Iupac(), rc=True, engine="pallas")
+    sp = Searcher(
+        profiles.Iupac(), rc=True, engine=PallasEngine(interpret=True)
+    )
     sn = Searcher(profiles.Iupac(), rc=True, engine="numpy")
     got, want = sp.search(pat, text, k), sn.search(pat, text, k)
     assert want, "planted long-pattern match must be found"
@@ -75,7 +75,7 @@ def test_long_pattern_exact_pin_word_straddle():
     text = bytes(rng.choice(BASES, size=300)) + pat + bytes(
         rng.choice(BASES, size=289)
     )
-    for eng in ("numpy", "xla", "pallas"):
+    for eng in ("numpy", "xla", PallasEngine(interpret=True)):
         s = Searcher(profiles.Iupac(), rc=False, engine=eng)
         ms = [m for m in s.search(pat, text, 2) if m.cost == 0]
         assert any(
@@ -168,12 +168,11 @@ def test_long_pattern_tile_boundary_plant():
 
 def test_window_builder_halo_exceeds_w():
     """Regression (round 3): the window builder's halo strips. When the
-    VMEM-capped owned width W is smaller than the halo (m=1000 on the
-    Pallas planner: W~50 < halo=40+ words), a single shifted reshape can
+    owned width W is smaller than the halo, a single shifted reshape can
     only supply W halo words — the builder must stack ceil(halo/W)
-    strips. Checks win_build's tile-major output against a naive
-    per-tile slice for halo > W, halo == W, and halo < W."""
-    from sassy_tpu.ops.myers_xla import _kernels
+    strips. Checks the (NW, P, T) windows the scan kernel reads against a
+    naive per-tile slice for halo > W, halo == W, and halo < W."""
+    from sassy_jax.ops.myers_xla import _kernels
 
     rng = np.random.default_rng(99)
     for P, T, W, halo in [(2, 5, 2, 5), (1, 4, 3, 3), (3, 6, 4, 1),
@@ -182,8 +181,8 @@ def test_window_builder_halo_exceeds_w():
         gw = T * W
         planes = rng.integers(0, 1 << 32, size=(P, gw), dtype=np.uint32)
         got = np.asarray(
-            _kernels()["win_build_tm"](planes, "iupac", T, W, halo)
-        )
+            _kernels()["windows"](planes, T=T, W=W, halo=halo)
+        ).transpose(1, 2, 0)  # (NW, P, T) -> (P, T, NW)
         flat = np.zeros((P, max(gw, T * W + W + 1, NW)), dtype=np.uint32)
         flat[:, :gw] = planes
         want = np.zeros((P, T, NW), dtype=np.uint32)
@@ -199,7 +198,7 @@ def test_window_builder_halo_exceeds_w():
 def test_xla_engine_forced_halo_gt_w():
     """End-to-end scan correctness when the layout has halo > W: force the
     planner to a degenerate geometry and compare against the oracle."""
-    from sassy_tpu.search import make_engine
+    from sassy_jax.search import make_engine
 
     rng = np.random.default_rng(123)
     pat, text = _planted_case(rng, 70, 900, 5, 2)

@@ -7,9 +7,9 @@ validation path the driver's dryrun_multichip uses.
 import numpy as np
 import pytest
 
-from sassy_tpu.parallel import ShardedSearch, make_mesh
-from sassy_tpu.profiles import Dna, Iupac
-from sassy_tpu.search import NumpyEngine
+from sassy_jax.parallel import ShardedSearch, make_mesh
+from sassy_jax.profiles import Dna, Iupac
+from sassy_jax.search import NumpyEngine
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 

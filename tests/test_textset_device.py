@@ -9,8 +9,8 @@ device because the host->device link dominates fresh-text searches."""
 import numpy as np
 import pytest
 
-from sassy_tpu.ops.batch import BatchEngine, TextSet
-from sassy_tpu.profiles import Iupac
+from sassy_jax.ops.batch import BatchEngine, TextSet
+from sassy_jax.profiles import Iupac
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -24,7 +24,7 @@ def _force_device_path(monkeypatch):
 def test_reverse_planes_matches_host_pack():
     import jax.numpy as jnp
 
-    from sassy_tpu.ops.myers_xla import _bucket_words, _cdiv, _kernels
+    from sassy_jax.ops.myers_xla import _bucket_words, _cdiv, _kernels
 
     rng = np.random.default_rng(9)
     prof = Iupac()
@@ -56,7 +56,7 @@ def test_batch_device_assembly_and_reverse_parity():
     texts[1][6977:7000] = pats[1][::-1]  # plant at the rev-text start
     texts[0][39000:39023] = pats[2]
     codes = [prof.encode(p) for p in pats]
-    eng = BatchEngine(backend="pallas")
+    eng = BatchEngine(backend="pallas", interpret=True)
     ref_eng = BatchEngine(backend="xla")
     ts = TextSet(texts)
     assert eng.candidates_many(prof, codes, ts, 3) == \
@@ -68,7 +68,7 @@ def test_batch_device_assembly_and_reverse_parity():
 
 
 def test_search_many_rc_uses_shared_textset():
-    from sassy_tpu import Searcher, profiles as P
+    from sassy_jax import Searcher, profiles as P
 
     rng = np.random.default_rng(21)
     texts = [bytes(rng.choice(BASES, size=n)) for n in (30000, 9000)]
@@ -86,7 +86,9 @@ def test_search_many_rc_uses_shared_textset():
             for m in ms
         )
 
-    sp = Searcher(P.Iupac(), rc=True, engine="pallas")
+    from sassy_jax.ops.myers_pallas import PallasEngine
+
+    sp = Searcher(P.Iupac(), rc=True, engine=PallasEngine(interpret=True))
     sn = Searcher(P.Iupac(), rc=True, engine="numpy")
     assert key(sp.search_many(pats, texts, 3)) == \
         key(sn.search_many(pats, texts, 3))
@@ -101,7 +103,7 @@ def test_reverse_device_assembly_adversarial():
     path on the reversed texts bit-for-bit."""
     rng = np.random.default_rng(123)
     prof = Iupac()
-    eng = BatchEngine(backend="pallas", cell_budget=1 << 18)
+    eng = BatchEngine(backend="pallas", interpret=True, cell_budget=1 << 18)
     ref = BatchEngine(backend="xla", cell_budget=1 << 18)
     for trial in range(4):
         m = int(rng.integers(4, 10))

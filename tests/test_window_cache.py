@@ -1,16 +1,16 @@
-"""Cached kernel-layout window parity (PreparedText.win_for / TextSet.packed_win).
+"""Cached window parity (PreparedText.win_for).
 
-Repeat searches over a PreparedText (and every Pallas batch dispatch) run
-from a cached (G, NW, P, 8, 128) window array instead of rebuilding the
-window layout per call; results must be bit-identical to the XLA engine.
-The reference analog is its per-search text reuse (search.rs caches the
-encoded text profile across calls)."""
+Repeat searches over a PreparedText run from a cached (NW, P, T) window
+array instead of rebuilding the windows per call; results must be
+bit-identical to the XLA engine. The reference analog is its per-search
+text reuse (search.rs caches the encoded text profile across calls)."""
 
 import numpy as np
 import pytest
 
-from sassy_tpu.profiles import Iupac
-from sassy_tpu.search import make_engine
+from sassy_jax.ops.myers_pallas import PallasEngine
+from sassy_jax.profiles import Iupac
+from sassy_jax.search import make_engine
 
 
 @pytest.fixture(scope="module")
@@ -28,7 +28,7 @@ def planted():
 def test_prepared_text_window_cache_parity(planted):
     text, pat = planted
     prof = Iupac()
-    eng = make_engine("pallas")  # interpret mode under the CPU conftest
+    eng = PallasEngine(interpret=True)
     engx = make_engine("xla")
     prep = eng.prepare(prof, text)
     pc = prof.encode(pat)
@@ -44,7 +44,7 @@ def test_prepared_text_window_cache_parity(planted):
 def test_prepared_text_window_cache_overhang(planted):
     text, pat = planted
     prof = Iupac()
-    eng = make_engine("pallas")
+    eng = PallasEngine(interpret=True)
     engx = make_engine("xla")
     prep = eng.prepare(prof, text)
     pc = prof.encode(pat)
@@ -61,7 +61,7 @@ def test_one_shot_arrays_skip_window_build(planted):
     # cache build); a second call over the same array may then use it
     text, pat = planted
     prof = Iupac()
-    eng = make_engine("pallas")
+    eng = PallasEngine(interpret=True)
     pc = prof.encode(pat)
     first = eng.candidates(prof, pc, text, 3, None, None, False)
     prep = eng.prepare(prof, text)
@@ -73,13 +73,13 @@ def test_one_shot_arrays_skip_window_build(planted):
 
 @pytest.mark.slow
 def test_hier_branch_with_cached_windows_interpret():
-    """Drive the pipeline's hier branch directly with cached windows
-    (win_native for the prefilter scan, win_tm for the tile gather) on
-    the interpret Pallas backend, vs the same call without caches."""
+    """Drive the pipeline's hier branch directly with cached windows (the
+    prefilter scans them and the tile gather reads them) on the interpret
+    Pallas backend, vs the same call without caches."""
     import numpy as np
 
-    from sassy_tpu.ops.myers_xla import _kernels
-    from sassy_tpu.profiles import Iupac
+    from sassy_jax.ops.myers_xla import _kernels
+    from sassy_jax.profiles import Iupac
 
     prof = Iupac()
     rng = np.random.default_rng(3)
@@ -88,7 +88,7 @@ def test_hier_branch_with_cached_windows_interpret():
     pat = rng.choice(bases, size=24)
     for off in (100, 20000, 39950):
         text[off : off + 24] = pat
-    eng = make_engine("pallas")
+    eng = PallasEngine(interpret=True)
     prep = eng.prepare(prof, text)
     args, st = eng.build_inputs(prof, prof.encode(pat), prep, 3)
     st["hier_s"] = 8  # force the hier branch at this small shape
@@ -98,12 +98,7 @@ def test_hier_branch_with_cached_windows_interpret():
         ker["pipeline"](*args, **st, cap=cap, bcap=bcap)
     )
     win = prep.win_for(args[0], 0, st["T"], st["W"], st["halo"])
-    win_tm = prep.win_for(args[0], 0, st["T"], st["W"], st["halo"], "tm")
-    got = np.asarray(
-        ker["pipeline"](
-            *args, **st, cap=cap, bcap=bcap, win_native=win, win_tm=win_tm
-        )
-    )
+    got = np.asarray(ker["pipeline"](*args, **st, cap=cap, bcap=bcap, win=win))
     n = int(base[0])
     assert int(got[0]) == n
     assert sorted(got[2 : 2 + n]) == sorted(base[2 : 2 + n])
