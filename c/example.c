@@ -5,7 +5,7 @@
 #include <stdio.h>
 #include <string.h>
 
-#include "sassy_jax.h"
+#include "sassy_tpu.h"
 
 int main(void) {
   sassy_searcher_t *s = sassy_searcher("iupac", 1, NAN);

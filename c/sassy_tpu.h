@@ -1,13 +1,13 @@
-/* C ABI for sassy_jax — mirrors the reference's C interface
+/* C ABI for sassy_tpu — mirrors the reference's C interface
  * (/root/reference/src/c.rs:16-131, c/sassy.h): create a searcher for an
  * alphabet, search pattern-in-text up to distance k, get a malloc'd array
  * of matches (no CIGAR across the ABI, as in the reference), free both.
  *
- * Implementation: libsassy_jax_c.so embeds a CPython interpreter and
- * forwards to the sassy_jax package (build: c/Makefile).
+ * Implementation: libsassy_tpu_c.so embeds a CPython interpreter and
+ * forwards to the sassy_tpu package (build: c/Makefile).
  */
-#ifndef SASSY_JAX_H
-#define SASSY_JAX_H
+#ifndef SASSY_TPU_H
+#define SASSY_TPU_H
 
 #include <stddef.h>
 #include <stdint.h>
@@ -46,4 +46,4 @@ void sassy_searcher_free(sassy_searcher_t *searcher);
 }
 #endif
 
-#endif /* SASSY_JAX_H */
+#endif /* SASSY_TPU_H */

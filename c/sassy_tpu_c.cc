@@ -1,10 +1,10 @@
-// C ABI implementation: embeds CPython and forwards to the sassy_jax
+// C ABI implementation: embeds CPython and forwards to the sassy_tpu
 // package (the reference exposes the same surface from its Rust cdylib,
 // /root/reference/src/c.rs:52-131).
 //
 // Thread-safety: calls are serialized through the CPython GIL.
 
-#include "sassy_jax.h"
+#include "sassy_tpu.h"
 
 #include <Python.h>
 
@@ -37,14 +37,14 @@ struct Guard {
 }  // namespace
 
 struct sassy_searcher {
-  PyObject *obj;  // sassy_jax.Searcher
+  PyObject *obj;  // sassy_tpu.Searcher
 };
 
 extern "C" sassy_searcher_t *sassy_searcher(const char *alphabet, int rc,
                                             double alpha) {
   ensure_python();
   Guard g;
-  PyObject *mod = PyImport_ImportModule("sassy_jax");
+  PyObject *mod = PyImport_ImportModule("sassy_tpu");
   if (!mod) {
     PyErr_Print();
     return nullptr;

@@ -15,7 +15,7 @@ Runs, in one process and in order (any failed phase fails the script):
                 forward and reversed text): candidates equal the XLA
                 engine's on the same card, every planted hit is found, and
                 a 1 Mbp slice equals the NumPy oracle.
-4. cli        — ``crispr`` and ``search`` through ``sassy_jax.cli.main``
+4. cli        — ``crispr`` and ``search`` through ``sassy_tpu.cli.main``
                 over a generated multi-record FASTA of 256 MiB; rows equal
                 the library's ``Searcher`` on the same input.
 
@@ -115,8 +115,8 @@ def reference_scan(win, tile0, pm, ip, hi, m, bm, vf, vt, k, eq_mode):
     import jax
     import jax.numpy as jnp
 
-    from sassy_jax.ops.minima import meta_from_words
-    from sassy_jax.ops.myers_xla import _kernels
+    from sassy_tpu.ops.minima import meta_from_words
+    from sassy_tpu.ops.myers_xla import _kernels
 
     scan_core = _kernels()["scan_core"]
 
@@ -137,7 +137,7 @@ def compare_kernel(name, win, tile0, pats, vf, vt, eq_mode, meta, interpret):
     import jax
     import jax.numpy as jnp
 
-    from sassy_jax.ops.myers_pallas import scan_q
+    from sassy_tpu.ops.myers_pallas import scan_q
 
     pm, ip, hi, m, bm = (jnp.asarray(np.stack(x)) for x in zip(*pats))
     k = jnp.int32(K)
@@ -175,7 +175,7 @@ def engine_windows(prof, prep, pattern, eng):
     for ``pattern`` over ``prep`` (a PreparedText)."""
     import jax.numpy as jnp
 
-    from sassy_jax.ops.myers_xla import _kernels
+    from sassy_tpu.ops.myers_xla import _kernels
 
     args, st = eng.build_inputs(prof, prof.encode(pattern), prep, K)
     T, W, halo = st["T"], st["W"], st["halo"]
@@ -188,10 +188,10 @@ def engine_windows(prof, prep, pattern, eng):
 
 def phase_kernel(rng, interpret=False, text_bp=GIB, ascii_bp=GIB // 4,
                  batch_bp=OFF_TARGETS_BP):
-    from sassy_jax.ops.batch import BatchEngine, TextSet
-    from sassy_jax.ops.myers_pallas import PallasEngine
-    from sassy_jax.ops.myers_xla import PreparedText, pattern_inputs_np
-    from sassy_jax.profiles import Ascii, Iupac
+    from sassy_tpu.ops.batch import BatchEngine, TextSet
+    from sassy_tpu.ops.myers_pallas import PallasEngine
+    from sassy_tpu.ops.myers_xla import PreparedText, pattern_inputs_np
+    from sassy_tpu.profiles import Ascii, Iupac
 
     import jax.numpy as jnp
 
@@ -275,11 +275,11 @@ def plant(rng, text, pattern, positions, edits, rc=False):
 def phase_single(rng, interpret=False, text_bp=GIB):
     import jax.numpy as jnp
 
-    from sassy_jax import Searcher, Strand
-    from sassy_jax.ops.myers_pallas import PallasEngine
-    from sassy_jax.ops.myers_xla import PreparedText, XlaEngine
-    from sassy_jax.profiles import Iupac
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu import Searcher, Strand
+    from sassy_tpu.ops.myers_pallas import PallasEngine
+    from sassy_tpu.ops.myers_xla import PreparedText, XlaEngine
+    from sassy_tpu.profiles import Iupac
+    from sassy_tpu.search import NumpyEngine
 
     prof = Iupac()
     pattern = rng.choice(BASES, size=23)
@@ -348,10 +348,10 @@ def off_targets_case(rng, n_bp):
 
 
 def phase_batch(rng, interpret=False, n_bp=OFF_TARGETS_BP):
-    from sassy_jax import Searcher, Strand
-    from sassy_jax.ops.batch import BatchEngine, TextSet
-    from sassy_jax.profiles import Iupac
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu import Searcher, Strand
+    from sassy_tpu.ops.batch import BatchEngine, TextSet
+    from sassy_tpu.profiles import Iupac
+    from sassy_tpu.search import NumpyEngine
 
     prof = Iupac()
     guides, genome, fwd, rev = off_targets_case(rng, n_bp)
@@ -403,9 +403,9 @@ def phase_batch(rng, interpret=False, n_bp=OFF_TARGETS_BP):
 
 
 def phase_cli(rng, records=16, record_bp=16 << 20):
-    from sassy_jax import Searcher, Strand
-    from sassy_jax.cli import _format_cigar, main as cli_main
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu import Searcher, Strand
+    from sassy_tpu.cli import _format_cigar, main as cli_main
+    from sassy_tpu.profiles import Iupac
 
     prof = Iupac()
     guides = [np.concatenate([rng.choice(BASES, size=20),
@@ -489,9 +489,9 @@ def phase_cli(rng, records=16, record_bp=16 << 20):
 def phase_four(rng, devices, n_bp=OFF_TARGETS_BP, interpret=False):
     import jax
 
-    from sassy_jax.ops.batch import BatchEngine, TextSet
-    from sassy_jax.parallel import ShardedSearch, ShardedText, make_mesh
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu.ops.batch import BatchEngine, TextSet
+    from sassy_tpu.parallel import ShardedSearch, ShardedText, make_mesh
+    from sassy_tpu.profiles import Iupac
 
     prof = Iupac()
     guides, genome, fwd, _ = off_targets_case(rng, n_bp)

@@ -13,7 +13,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from sassy_jax import Searcher, profiles  # noqa: E402
+from sassy_tpu import Searcher, profiles  # noqa: E402
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 

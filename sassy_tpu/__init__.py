@@ -1,4 +1,4 @@
-"""sassy_jax: approximate string matching on the GPU, in JAX.
+"""sassy_tpu: approximate string matching on the GPU, in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference `sassy` library (RagnarGrootKoerkamp/sassy): find all locations in
@@ -8,7 +8,7 @@ N-fraction filtering, and CIGAR traceback.
 
 Public API mirrors the reference's (src/lib.rs:151-165 re-exports):
 
-    from sassy_jax import Searcher, Match, Strand, profiles
+    from sassy_tpu import Searcher, Match, Strand, profiles
 
     searcher = Searcher(profiles.Iupac(), rc=False)
     matches = searcher.search(b"ATCG", b"AAAATTGAAA", k=1)

@@ -537,7 +537,7 @@ def main(argv=None) -> int:
     try:
         return _main(argv)
     except BrokenPipeError:
-        # downstream pager/head closed the pipe (e.g. `sassy-jax search ...
+        # downstream pager/head closed the pipe (e.g. `sassy-tpu search ...
         # | head`): exit quietly like grep does, not with a traceback.
         # Reopen stdout on devnull so the interpreter's shutdown flush of
         # the broken pipe does not raise a second time.
@@ -550,7 +550,7 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="sassy-jax",
+        prog="sassy-tpu",
         description="Approximate string matching on the GPU (JAX)",
     )
     ap.add_argument(

@@ -8,7 +8,7 @@ kernel runs in the Pallas interpreter only when a caller asks for it.
 
 from __future__ import annotations
 
-__all__ = ["choose_scan"]
+__all__ = ["choose_scan", "lane_multiple", "pad_lanes_for"]
 
 #: scan backend per JAX platform
 _BY_PLATFORM = {"gpu": "pallas", "cpu": "xla"}
@@ -27,3 +27,19 @@ def choose_scan(interpret: bool = False) -> tuple[str, bool]:
     if platform not in _BY_PLATFORM:
         raise RuntimeError(f"no scan backend for JAX platform {platform!r}")
     return _BY_PLATFORM[platform], False
+
+
+def lane_multiple(backend: str) -> int:
+    """The lane count ``backend``'s scan reads a multiple of: whole
+    ``LANE_BLOCK``s for the kernel, any count for the XLA scan."""
+    if backend != "pallas":
+        return 1
+    from .myers_pallas import LANE_BLOCK
+
+    return LANE_BLOCK
+
+
+def pad_lanes_for(backend: str, n: int) -> int:
+    """Round the lane count ``n`` up to a multiple of :func:`lane_multiple`."""
+    b = lane_multiple(backend)
+    return -(-n // b) * b

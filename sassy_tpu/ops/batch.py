@@ -35,10 +35,9 @@ import numpy as np
 
 from .. import semantics
 from ..profiles import Profile
-from .backend import choose_scan
+from .backend import choose_scan, lane_multiple, pad_lanes_for
 from .bitpack import WORD_BITS
 from .minima import select_candidates_tiles, select_words_tiles_q
-from .myers_pallas import pad_lanes
 from .myers_xla import (
     _bucket_words,
     _cdiv,
@@ -569,7 +568,7 @@ def _batch_fn(
             )  # (Q, NW, T)
             flag = jnp.any((meta_s & 1) != 0, axis=(0, 1))  # (T,)
             nflag = jnp.sum(flag.astype(jnp.int32))
-            tcap = pad_lanes(bcap) if backend == "pallas" else bcap
+            tcap = pad_lanes_for(backend, bcap)
             slot = jnp.where(
                 flag, jnp.cumsum(flag.astype(jnp.int32)) - 1, tcap
             )
@@ -778,7 +777,7 @@ class BatchEngine:
             _bucket_words(_cdiv(target, WORD_BITS)),
             self.w_max_words,
         )
-        pad_mult = pad_lanes(1) if self.backend == "pallas" else 1
+        pad_mult = lane_multiple(self.backend)
         w_chars = _pick_w_words(lens, steps, halo, w_cap, pad_mult) * WORD_BITS
         if w_chars <= halo + WORD_BITS:
             w_chars = _bucket_words(

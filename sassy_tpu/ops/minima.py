@@ -1,6 +1,6 @@
 """Device-side candidate end-position extraction.
 
-jnp port of :func:`sassy_jax.semantics.find_candidates` (the reference's
+jnp port of :func:`sassy_tpu.semantics.find_candidates` (the reference's
 sequential minima scan, search.rs:1286-1369), engineered for the device:
 
 - **No gathers/scatters over positions.** The decreasing-state d(p) ("last
@@ -881,7 +881,7 @@ def select_candidates_tiles(
 
     Each tile is an independent text (or text segment) with its own boundary
     cost, ownership interval, and trailing-minimum position — the device-side
-    generalization of :func:`sassy_jax.semantics.find_candidates` to a
+    generalization of :func:`sassy_tpu.semantics.find_candidates` to a
     (tiles, positions) grid. The tile width may exceed the owned range (the
     final word is right context so the minima lookahead past ``valid_to``
     is exact). Returns packed [count, nblocks, enc[cap], cost[cap]] where

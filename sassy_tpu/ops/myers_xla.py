@@ -32,6 +32,7 @@ import numpy as np
 
 from .. import semantics
 from ..profiles import Profile
+from .backend import pad_lanes_for
 from .bitpack import WORD_BITS, pattern_plane_masks_np
 from .minima import select_candidates
 
@@ -543,10 +544,7 @@ def _kernels():
                     eq_mode, backend, interpret,
                 )
                 flag = jnp.any((meta_s & 1) != 0, axis=0)  # (T,)
-
-                from .myers_pallas import pad_lanes
-
-                tcap = pad_lanes(bcap) if backend == "pallas" else bcap
+                tcap = pad_lanes_for(backend, bcap)
                 pt = compact_packed(
                     jax, jnp, flag, tile, jnp.zeros((T,), jnp.int32),
                     tcap, max(16, tcap // 4),
@@ -988,11 +986,7 @@ class XlaEngine:
             T, W, halo = 1, prep.gw, 0
         if fast_alpha:
             W = max(W, _cdiv(steps, WORD_BITS) + 1)
-            T = T + 1  # spare tile for the overshoot tail
-            if self.backend == "pallas":
-                from .myers_pallas import pad_lanes
-
-                T = pad_lanes(T)
+            T = pad_lanes_for(self.backend, T + 1)  # spare overshoot tile
 
         pmasks, is_pad, h_init, boundary_m = pattern_inputs_np(
             profile, pattern_codes, alpha, max_overhang

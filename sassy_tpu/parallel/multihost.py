@@ -3,7 +3,7 @@
 The reference is single-node (SURVEY §2.8: rayon threads only). The
 scale-out story here is: per-host genome shards with ``pattern_len + k`` halos,
 the pattern batch replicated on every chip, match buffers gathered with
-collectives — i.e. exactly :class:`sassy_jax.parallel.ShardedSearch` run on
+collectives — i.e. exactly :class:`sassy_tpu.parallel.ShardedSearch` run on
 a global mesh. This module holds the host-level plumbing:
 
 - ``initialize()`` wraps ``jax.distributed.initialize`` (coordinator env

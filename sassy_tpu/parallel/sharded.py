@@ -40,8 +40,7 @@ from .. import semantics
 from ..profiles import Profile
 from ..ops.bitpack import WORD_BITS, pack_planes_np
 from ..ops.minima import select_candidates
-from ..ops.backend import choose_scan
-from ..ops.myers_pallas import pad_lanes
+from ..ops.backend import choose_scan, pad_lanes_for
 from ..ops.myers_xla import (
     _bucket_rows,
     _cdiv,
@@ -52,6 +51,23 @@ from ..ops.myers_xla import (
 )
 
 __all__ = ["ShardedSearch", "ShardedText", "make_mesh"]
+
+#: device bytes the overhang path's position-level selection holds per
+#: shard position for each pattern in flight (peak per card grew by ~440 MB
+#: per extra pattern at 32 M positions per card on an H100)
+OVERHANG_BYTES_PER_POS = 14
+#: device bytes the overhang path may hold for patterns in flight
+OVERHANG_BUDGET = 4 << 30
+
+
+def overhang_batch_for(positions: int, q_local: int) -> int:
+    """Patterns per overhang-path step: the largest power of two whose
+    position arrays fit ``OVERHANG_BUDGET``, within ``[1, q_local]``."""
+    fit = OVERHANG_BUDGET // max(1, OVERHANG_BYTES_PER_POS * positions)
+    b = 1
+    while 2 * b <= min(fit, q_local):
+        b *= 2
+    return b
 
 
 class ShardedText:
@@ -119,8 +135,9 @@ class ShardedSearch:
     - profiles: dna/iupac only; ascii raises NotImplementedError (the
       sharded plane packer builds 4-bit IUPAC planes).
     - overhang (``alpha is not None``): computed exactly with the same
-      scan, but with position-level selection one pattern at a time — the
-      overhang tail tile + state-strip fast path is single-chip only.
+      scan, but with position-level selection per pattern, as many local
+      patterns at a time as ``OVERHANG_BUDGET`` holds — the overhang tail
+      tile + state-strip fast path is single-chip only.
     """
 
     def __init__(
@@ -192,11 +209,9 @@ class ShardedSearch:
         # planner rule as single-chip — tiles big enough to amortize the
         # halo re-scan once the shard fills the lane budget
         WL = min(128, max(4 * H, 16, _cdiv(NW, 64 * 1024)))
-        TL = _cdiv(NW, WL)
-        if backend == "pallas":
-            # the kernel grid wants whole lane blocks; dummy tiles own
-            # nothing and contribute no state
-            TL = pad_lanes(TL)
+        # the kernel grid wants whole lane blocks; dummy tiles own nothing
+        # and contribute no state
+        TL = pad_lanes_for(backend, _cdiv(NW, WL))
 
         def body(planes_sh, pmasks_sh, is_pad, h_init):
             planes = planes_sh[0]  # (P, S) local shard
@@ -271,7 +286,7 @@ class ShardedSearch:
                         interpret,
                     )
                     flag = jnp.any((meta_s & 1) != 0, axis=(0, 1))
-                    tcap = pad_lanes(bcap) if backend == "pallas" else bcap
+                    tcap = pad_lanes_for(backend, bcap)
                     pt = compact_packed(
                         jax, jnp, flag, tile, jnp.zeros((TL,), jnp.int32),
                         tcap, max(16, tcap // 4),
@@ -377,24 +392,22 @@ class ShardedSearch:
                     jnp.where(posbuf >= 0, posbuf + offset, -1)
                 )
 
-            # one pattern at a time: the position-level selection holds
-            # several int32 arrays of the shard's full position count
-            out = jax.lax.map(one_pattern, pmasks_sh)  # (Qlocal, 2+2cap)
+            # the position-level selection holds several int32 arrays of the
+            # shard's full position count per pattern in flight
+            ob = s["overhang_batch"]
+            out = jax.lax.map(
+                one_pattern, pmasks_sh, batch_size=ob if ob > 1 else None
+            )  # (Qlocal, 2+2cap)
             return out[:, None, :]
-
-        import inspect
 
         in_specs = (P("text", None, None), P("pat", None, None), P(), P())
         out_specs = P("pat", "text", None)
         # Disable the varying-manual-axes / replication check: the scan
         # carries inside the kernel are initialized from constants, which the
         # checker flags as unvarying vs the varying outputs.
-        params = inspect.signature(jax.shard_map).parameters
-        check_kw = (
-            {"check_vma": False} if "check_vma" in params else {"check_rep": False}
-        )
         fn = jax.shard_map(
-            body, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **check_kw
+            body, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+            check_vma=False,
         )
         fn = jax.jit(fn)
         self._jitted[key] = fn
@@ -471,6 +484,11 @@ class ShardedSearch:
             m=m, boundary_m=boundary_m, n=n, max_pos=max_pos, k=k,
             alpha=float(alpha) if alpha is not None else 0.0,
             fast=fast, backend=backend, interpret=self.interpret,
+            # local patterns per overhang-path step (lax.map batch_size)
+            overhang_batch=(
+                0 if fast
+                else overhang_batch_for((S + H + 1) * WORD_BITS, Qe // Dp)
+            ),
             # hierarchical suffix prefilter (single-chip gate mirrored):
             # only pays when shards are big and the suffix is selective
             hier_s=(

@@ -9,7 +9,7 @@ N+1's scan is in flight before batch N's results are fetched).
 This script quantifies it on a genome-scale fasta:
   (a) parse-only:  iterate record batches through fastx.read_fastx
   (b) device-only: scan pre-parsed batches through the same engine calls
-  (c) end-to-end:  the actual `sassy-jax crispr` pipeline
+  (c) end-to-end:  the actual `sassy-tpu crispr` pipeline
 and reports wall(c) vs max(a, b) (overlapped) vs a+b (serial).
 
 Usage: python scripts/bench_io_overlap.py [genome_mb] [n_guides] [--gzip]
@@ -58,7 +58,7 @@ def main() -> int:
     with open(gf, "wb") as f:
         f.write(b"\n".join(guides) + b"\n")
 
-    from sassy_jax.io import fastx
+    from sassy_tpu.io import fastx
 
     batch_bytes = 32 << 20
 
@@ -81,7 +81,7 @@ def main() -> int:
           f"({n / t_parse / 1e6:.0f} MB/s, {len(batches)} batches)")
 
     # (b) device-only on the pre-parsed batches (same engine path as crispr)
-    from sassy_jax import Searcher, profiles
+    from sassy_tpu import Searcher, profiles
 
     searcher = Searcher(profiles.Iupac(), rc=True).with_max_n_frac(0.2)
     texts0 = [r.seq for r in batches[0]]
@@ -122,7 +122,7 @@ def main() -> int:
     # tiny warmup run inside the same process is not possible; report both)
     t0 = time.perf_counter()
     r = subprocess.run(
-        [sys.executable, "-m", "sassy_jax.cli", "crispr",
+        [sys.executable, "-m", "sassy_tpu.cli", "crispr",
          "-g", gf, "-k", str(k), "--max-n-frac", "0.2",
          "-o", "/tmp/io_overlap_crispr.tsv", fa],
         capture_output=True, text=True,

@@ -10,7 +10,7 @@ from the reference fuzz's distribution (k in 0..4, m in 5..60, n in
 (±rc, ±overhang-alpha, ±n-frac, v1+v2, ±sam).
 
 Expected TSVs are produced by the NumPy oracle engine (the slow, direct
-transcription of the reference semantics in sassy_jax/semantics.py +
+transcription of the reference semantics in sassy_tpu/semantics.py +
 oracle.py); every device engine must then reproduce them byte-for-byte
 (tests/test_golden_corpus.py).
 
@@ -114,7 +114,7 @@ MATRIX = {
 
 
 def run_cli(argv) -> str:
-    from sassy_jax.cli import main
+    from sassy_tpu.cli import main
 
     out, err = io.StringIO(), io.StringIO()
     with redirect_stdout(out), redirect_stderr(err):

@@ -19,9 +19,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from sassy_jax.ops import batch as B
-    from sassy_jax.ops.myers_xla import _kernels, pattern_inputs_np
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu.ops import batch as B
+    from sassy_tpu.ops.myers_xla import _kernels, pattern_inputs_np
+    from sassy_tpu.profiles import Iupac
 
     Q = int(sys.argv[1]) if len(sys.argv) > 1 else 96
     MB = int(sys.argv[2]) if len(sys.argv) > 2 else 64

@@ -46,9 +46,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from sassy_jax.ops.myers_xla import PreparedText
-    from sassy_jax.profiles import Iupac
-    from sassy_jax.search import make_engine
+    from sassy_tpu.ops.myers_xla import PreparedText
+    from sassy_tpu.profiles import Iupac
+    from sassy_tpu.search import make_engine
 
     n = 1 << log2n
     rng = np.random.default_rng(42)

@@ -40,10 +40,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from sassy_jax import profiles  # noqa: E402
-from sassy_jax.ops.batch import BatchEngine, TextSet  # noqa: E402
-from sassy_jax.ops.myers_xla import XlaEngine  # noqa: E402
-from sassy_jax.search import NumpyEngine  # noqa: E402
+from sassy_tpu import profiles  # noqa: E402
+from sassy_tpu.ops.batch import BatchEngine, TextSet  # noqa: E402
+from sassy_tpu.ops.myers_xla import XlaEngine  # noqa: E402
+from sassy_tpu.search import NumpyEngine  # noqa: E402
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 IUPAC = np.frombuffer(b"ACGTNRYSWKM", dtype=np.uint8)

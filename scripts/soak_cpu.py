@@ -21,10 +21,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from sassy_jax import profiles  # noqa: E402
-from sassy_jax.ops.batch import BatchEngine  # noqa: E402
-from sassy_jax.ops.myers_xla import XlaEngine  # noqa: E402
-from sassy_jax.search import NumpyEngine  # noqa: E402
+from sassy_tpu import profiles  # noqa: E402
+from sassy_tpu.ops.batch import BatchEngine  # noqa: E402
+from sassy_tpu.ops.myers_xla import XlaEngine  # noqa: E402
+from sassy_tpu.search import NumpyEngine  # noqa: E402
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 IUPAC = np.frombuffer(b"ACGTNRYSWKM", dtype=np.uint8)
@@ -117,7 +117,7 @@ def main():
                 prof, pat, np.ascontiguousarray(text[::-1]), k, alpha, None,
                 allm,
             )
-            from sassy_jax.ops.batch import TextSet
+            from sassy_tpu.ops.batch import TextSet
 
             gotr = be.candidates_many(
                 prof, [pat], TextSet([text]), k, alpha, None, allm,

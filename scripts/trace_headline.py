@@ -20,9 +20,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from sassy_jax.ops.myers_xla import PreparedText
-    from sassy_jax.profiles import Iupac
-    from sassy_jax.search import make_engine
+    from sassy_tpu.ops.myers_xla import PreparedText
+    from sassy_tpu.profiles import Iupac
+    from sassy_tpu.search import make_engine
 
     outdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/trace_headline"
     n = 1 << 30

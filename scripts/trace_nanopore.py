@@ -20,8 +20,8 @@ sys.path.insert(0, ".")
 def main():
     import jax
 
-    from sassy_jax.ops import batch as B
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu.ops import batch as B
+    from sassy_tpu.profiles import Iupac
 
     Q = int(sys.argv[1]) if len(sys.argv) > 1 else 96
     MB = int(sys.argv[2]) if len(sys.argv) > 2 else 100

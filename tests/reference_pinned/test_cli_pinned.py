@@ -5,7 +5,7 @@ guide with an N in its PAM against three crafted records, run through the
 real CLI with output-count assertions at four parameter settings.
 """
 
-from sassy_jax.cli import main
+from sassy_tpu.cli import main
 
 
 def _run_crispr(tmp_path, k, max_n_frac, allow_pam_edits):

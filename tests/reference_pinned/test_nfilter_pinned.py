@@ -6,7 +6,7 @@ Transcribed from /root/reference/src/search.rs n_frac tests and
 
 import pytest
 
-from sassy_jax import Searcher, profiles
+from sassy_tpu import Searcher, profiles
 
 ENGINES = ["numpy", "xla"]
 

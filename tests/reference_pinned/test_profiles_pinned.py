@@ -4,7 +4,7 @@ Every expectation below is transcribed verbatim from the reference
 authors' own fixed test cases (file:line cited per test):
 /root/reference/src/profiles/{iupac,dna,ascii}.rs."""
 
-from sassy_jax.profiles import Ascii, Dna, Iupac
+from sassy_tpu.profiles import Ascii, Dna, Iupac
 
 
 def test_iupac_is_match():

@@ -37,7 +37,7 @@ Consequences pinned here:
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, Strand, profiles
+from sassy_tpu import Searcher, Strand, profiles
 
 ENGINES = ["numpy", "xla"]
 

@@ -9,8 +9,8 @@ generated by this repo's oracle.
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, Strand, profiles
-from sassy_jax.profiles import as_bytes_array
+from sassy_tpu import Searcher, Strand, profiles
+from sassy_tpu.profiles import as_bytes_array
 
 ENGINES = ["numpy", "xla"]
 

@@ -9,7 +9,7 @@ planted structure) — their value is exercising the same inputs.
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, profiles
+from sassy_tpu import Searcher, profiles
 
 ENGINES = ["numpy", "xla"]
 
@@ -187,8 +187,8 @@ def test_double_match_search_all_smoke(engine):
 
 def test_net_insertions_since_last_match_cases():
     # alignment_iterator.rs:385-408 (net_insertions_since_last_match_cases)
-    from sassy_jax.alignment_iterator import net_insertions_since_last_match
-    from sassy_jax.cigar import Cigar
+    from sassy_tpu.alignment_iterator import net_insertions_since_last_match
+    from sassy_tpu.cigar import Cigar
 
     cases = [
         ("", 0),

@@ -11,7 +11,7 @@ test_rc_anchor_settled.py.
 
 import pytest
 
-from sassy_jax import Searcher, Strand, profiles
+from sassy_tpu import Searcher, Strand, profiles
 
 ENGINES = ["numpy", "xla"]
 

@@ -3,8 +3,8 @@ inline tests (/root/reference/src/search.rs:1795-2190)."""
 
 import numpy as np
 
-from sassy_jax import Searcher, Strand, profiles
-from sassy_jax.alignment_iterator import CONTINUE, iterate_all_alignments
+from sassy_tpu import Searcher, Strand, profiles
+from sassy_tpu.alignment_iterator import CONTINUE, iterate_all_alignments
 
 
 def _searcher():

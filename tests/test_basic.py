@@ -7,7 +7,7 @@ reference CI runs as doc tests; our output must be identical.
 
 import pytest
 
-from sassy_jax import CachedRev, Searcher, Strand, profiles
+from sassy_tpu import CachedRev, Searcher, Strand, profiles
 
 
 def test_readme_lib_example_iupac():
@@ -115,7 +115,7 @@ def test_only_best_match():
 
 
 def test_without_trace():
-    from sassy_jax import UNKNOWN
+    from sassy_tpu import UNKNOWN
 
     s = Searcher(profiles.Dna(), rc=False, engine="numpy").without_trace()
     matches = s.search(b"ATCG", b"CCCATCGCC", 0)

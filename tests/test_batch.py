@@ -9,7 +9,7 @@ that force multi-piece segmentation, rc, overhang, and all alphabets.
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, profiles
+from sassy_tpu import Searcher, profiles
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -62,7 +62,7 @@ def test_search_many_unequal_lengths():
 
 def test_long_text_segmentation():
     """Force multi-piece segmentation by shrinking the piece size."""
-    from sassy_jax.ops.batch import BatchEngine
+    from sassy_tpu.ops.batch import BatchEngine
 
     rng = np.random.default_rng(9)
     prof = profiles.Iupac()
@@ -144,7 +144,7 @@ def test_batch_all_minima_and_overhang_steps():
 def test_hierarchical_prefilter_exact():
     """Force the suffix-prefilter path (>=256 tiles) and compare with the
     oracle — the prefilter must be invisible in the output."""
-    from sassy_jax.ops.batch import BatchEngine
+    from sassy_tpu.ops.batch import BatchEngine
 
     rng = np.random.default_rng(21)
     prof = profiles.Iupac()
@@ -159,11 +159,11 @@ def test_hierarchical_prefilter_exact():
     texts[50][80:152] = mut
 
     eng = BatchEngine()
-    from sassy_jax.ops.batch import _suffix_rows
+    from sassy_tpu.ops.batch import _suffix_rows
     assert _suffix_rows(72, 2) == 32
     got = eng.candidates_many(prof, [prof.encode(p) for p in pats], texts, 2)
 
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu.search import NumpyEngine
 
     oracle = NumpyEngine()
     for qi, pat in enumerate(pats):
@@ -175,7 +175,7 @@ def test_hierarchical_prefilter_exact():
 
 
 def test_hierarchical_gate():
-    from sassy_jax.ops.batch import _suffix_rows
+    from sassy_tpu.ops.batch import _suffix_rows
 
     assert _suffix_rows(24, 0) == 8
     assert _suffix_rows(80, 3) == 32  # selectivity needs 8 + 6k rows
@@ -189,7 +189,7 @@ def test_hierarchical_gate():
 @pytest.mark.slow
 def test_batch_pallas_interpret():
     """The pallas batch backend (interpret mode on CPU) agrees with xla."""
-    from sassy_jax.ops.batch import BatchEngine
+    from sassy_tpu.ops.batch import BatchEngine
 
     rng = np.random.default_rng(33)
     prof = profiles.Iupac()
@@ -237,7 +237,7 @@ def test_v2_rc_anchor_start():
     for exact matches; anchors may differ only at tied plateaus."""
     import numpy as np
 
-    from sassy_jax import Searcher, Strand, profiles
+    from sassy_tpu import Searcher, Strand, profiles
 
     prof = profiles.Dna()
     pattern = b"ATCGATCA"

@@ -34,7 +34,7 @@ def test_c_abi_from_ctypes():
     caller side)."""
     import ctypes
 
-    lib_path = ROOT / "c" / "libsassy_jax_c.so"
+    lib_path = ROOT / "c" / "libsassy_tpu_c.so"
     if not lib_path.exists():
         subprocess.run(["make", "-C", str(ROOT / "c")], check=True,
                        capture_output=True)

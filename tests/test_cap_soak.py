@@ -22,9 +22,9 @@ own adversarial coverage (no reference counterpart to crib from).
 import numpy as np
 import pytest
 
-from sassy_jax.ops.batch import QID_PACK_MAX, BatchEngine
-from sassy_jax.profiles import Iupac
-from sassy_jax.search import NumpyEngine
+from sassy_tpu.ops.batch import QID_PACK_MAX, BatchEngine
+from sassy_tpu.profiles import Iupac
+from sassy_tpu.search import NumpyEngine
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 

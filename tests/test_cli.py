@@ -5,8 +5,8 @@ grep.rs:791-820)."""
 import numpy as np
 import pytest
 
-from sassy_jax.cli import main
-from sassy_jax.profiles import Iupac
+from sassy_tpu.cli import main
+from sassy_tpu.profiles import Iupac
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 RNG = np.random.default_rng(77)
@@ -155,8 +155,8 @@ def test_agrep(tmp_path, capsys):
 
 def test_pretty_print_directions():
     """RC matches render in text or pattern direction (pretty_print.rs)."""
-    from sassy_jax import Searcher, profiles
-    from sassy_jax.pretty_print import (
+    from sassy_tpu import Searcher, profiles
+    from sassy_tpu.pretty_print import (
         PrettyPrintDirection,
         PrettyPrintStyle,
         pretty_print,

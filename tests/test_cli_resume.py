@@ -14,9 +14,9 @@ import json
 import numpy as np
 import pytest
 
-from sassy_jax.cli import main
-from sassy_jax.io import fastx
-from sassy_jax.profiles import Iupac
+from sassy_tpu.cli import main
+from sassy_tpu.io import fastx
+from sassy_tpu.profiles import Iupac
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 RNG = np.random.default_rng(123)

@@ -7,8 +7,8 @@ checked against ``scan_core`` on the GPU by chip_smoke.py.
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, profiles
-from sassy_jax.ops.myers_pallas import PallasEngine
+from sassy_tpu import Searcher, profiles
+from sassy_tpu.ops.myers_pallas import PallasEngine
 
 
 @pytest.fixture(scope="module")

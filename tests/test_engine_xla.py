@@ -7,9 +7,9 @@ This is the analog of the reference's engine-vs-engine differential fuzz
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, profiles
-from sassy_jax.oracle import end_costs
-from sassy_jax.ops.myers_xla import end_costs_xla
+from sassy_tpu import Searcher, profiles
+from sassy_tpu.oracle import end_costs
+from sassy_tpu.ops.myers_xla import end_costs_xla
 
 rng = np.random.default_rng(42)
 
@@ -114,8 +114,8 @@ def test_full_search_matches_numpy_engine(use_rc, alpha):
 def test_multi_tile_candidates_vs_oracle():
     """Exercise the T>1 halo-tiled path with realistic plans (small tests all
     fall into the single-tile fast path, which once hid a window bug)."""
-    from sassy_jax.ops.myers_xla import XlaEngine
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu.ops.myers_xla import XlaEngine
+    from sassy_tpu.search import NumpyEngine
 
     profile = profiles.Iupac()
     xe, ne = XlaEngine(), NumpyEngine()
@@ -135,8 +135,8 @@ def test_single_text_hierarchical_prefilter():
     against the non-hier engine."""
     import numpy as np
 
-    from sassy_jax.ops.myers_xla import XlaEngine
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu.ops.myers_xla import XlaEngine
+    from sassy_tpu.profiles import Iupac
 
     rng = np.random.default_rng(31)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)

@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-import sassy_jax.io.fastx as fx
+import sassy_tpu.io.fastx as fx
 
 ROOT = Path(__file__).resolve().parent.parent
 

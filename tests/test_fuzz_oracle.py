@@ -7,9 +7,9 @@ Modeled on the reference's planted-match fuzz (search.rs:2604-2710
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, Strand, profiles
-from sassy_jax.cigar import DEL, INS, MATCH, SUB
-from sassy_jax.semantics import find_candidates, find_candidates_scalar
+from sassy_tpu import Searcher, Strand, profiles
+from sassy_tpu.cigar import DEL, INS, MATCH, SUB
+from sassy_tpu.semantics import find_candidates, find_candidates_scalar
 
 rng = np.random.default_rng(0)
 
@@ -167,7 +167,7 @@ def test_long_patterns_vs_oracle():
     the bit-parallel engine must match the oracle for multi-limb row counts."""
     import numpy as np
 
-    from sassy_jax import Searcher, profiles
+    from sassy_tpu import Searcher, profiles
 
     rng = np.random.default_rng(99)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)

@@ -11,7 +11,7 @@ from pathlib import Path
 
 import pytest
 
-from sassy_jax.cli import main
+from sassy_tpu.cli import main
 
 GOLD = Path(__file__).resolve().parent / "golden"
 

@@ -31,16 +31,16 @@ BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 @pytest.fixture(scope="module")
 def engines():
     _require_gpu()
-    from sassy_jax.ops.batch import BatchEngine
-    from sassy_jax.ops.myers_pallas import PallasEngine
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu.ops.batch import BatchEngine
+    from sassy_tpu.ops.myers_pallas import PallasEngine
+    from sassy_tpu.search import NumpyEngine
 
     return PallasEngine(), BatchEngine(), NumpyEngine()
 
 
 def test_tile_boundary_lookahead_hw(engines):
     # test_regressions.py recipe, on the real kernel
-    from sassy_jax import profiles
+    from sassy_tpu import profiles
 
     eng, _, oracle = engines
     prof = profiles.Iupac()
@@ -57,7 +57,7 @@ def test_tile_boundary_lookahead_hw(engines):
 
 
 def test_plateau_state_hw(engines):
-    from sassy_jax import profiles
+    from sassy_tpu import profiles
 
     eng, be, oracle = engines
     prof = profiles.Iupac()
@@ -87,7 +87,7 @@ def test_plateau_state_hw(engines):
 
 def test_alpha_overshoot_hw(engines):
     """Overhang fast path (tail tile + strips) on the real kernel."""
-    from sassy_jax import profiles
+    from sassy_tpu import profiles
 
     eng, be, oracle = engines
     prof = profiles.Iupac()
@@ -112,7 +112,7 @@ def test_alpha_overshoot_hw(engines):
 
 
 def test_batch_multi_text_hw(engines):
-    from sassy_jax import profiles
+    from sassy_tpu import profiles
 
     _, be, oracle = engines
     prof = profiles.Iupac()
@@ -137,7 +137,7 @@ def test_batch_multi_text_hw(engines):
 @pytest.mark.soak
 def test_oracle_soak_hw(engines):
     """10k-case random+planted soak against the real kernel (nightly)."""
-    from sassy_jax import profiles
+    from sassy_tpu import profiles
 
     eng, be, oracle = engines
     prof = profiles.Iupac()
@@ -177,8 +177,8 @@ def test_sharded_1dev_hw(engines):
     matches (a full oracle there would dominate the lane)."""
     import jax
 
-    from sassy_jax.parallel import ShardedSearch, ShardedText, make_mesh
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu.parallel import ShardedSearch, ShardedText, make_mesh
+    from sassy_tpu.profiles import Iupac
 
     _, _, oracle = engines
     prof = Iupac()

@@ -13,8 +13,8 @@ evals/ (run on the GPU).
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, Strand, profiles
-from sassy_jax.ops.myers_pallas import PallasEngine
+from sassy_tpu import Searcher, Strand, profiles
+from sassy_tpu.ops.myers_pallas import PallasEngine
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -172,7 +172,7 @@ def test_window_builder_halo_exceeds_w():
     only supply W halo words — the builder must stack ceil(halo/W)
     strips. Checks the (NW, P, T) windows the scan kernel reads against a
     naive per-tile slice for halo > W, halo == W, and halo < W."""
-    from sassy_jax.ops.myers_xla import _kernels
+    from sassy_tpu.ops.myers_xla import _kernels
 
     rng = np.random.default_rng(99)
     for P, T, W, halo in [(2, 5, 2, 5), (1, 4, 3, 3), (3, 6, 4, 1),
@@ -198,7 +198,7 @@ def test_window_builder_halo_exceeds_w():
 def test_xla_engine_forced_halo_gt_w():
     """End-to-end scan correctness when the layout has halo > W: force the
     planner to a degenerate geometry and compare against the oracle."""
-    from sassy_jax.search import make_engine
+    from sassy_tpu.search import make_engine
 
     rng = np.random.default_rng(123)
     pat, text = _planted_case(rng, 70, 900, 5, 2)

@@ -29,13 +29,13 @@ _WORKER = textwrap.dedent(
 
     coord, pid = sys.argv[1], int(sys.argv[2])
     sys.path.insert(0, {repo!r})
-    from sassy_jax.parallel import multihost
+    from sassy_tpu.parallel import multihost
     multihost.initialize(coordinator_address=coord,
                          num_processes={num_procs}, process_id=pid)
     assert jax.process_count() == {num_procs}, jax.process_count()
     assert len(jax.devices()) == 8, len(jax.devices())
 
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu.profiles import Iupac
     rng = np.random.default_rng(42)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     text = rng.choice(bases, size=5000)
@@ -88,8 +88,8 @@ def _run_global_search(tmp_path, num_procs: int):
 def _check_against_oracle(got):
     import numpy as np
 
-    from sassy_jax.profiles import Iupac
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu.profiles import Iupac
+    from sassy_tpu.search import NumpyEngine
 
     rng = np.random.default_rng(42)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)

@@ -14,8 +14,8 @@ is marked `soak` (nightly lane: pytest -m soak).
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, profiles
-from sassy_jax.nfilter import check_n_fraction
+from sassy_tpu import Searcher, profiles
+from sassy_tpu.nfilter import check_n_fraction
 
 NBASES = np.frombuffer(b"NACGT", dtype=np.uint8)
 

@@ -10,9 +10,9 @@ to the standard cached-planes path (and still agree). Covers alpha
 import numpy as np
 import pytest
 
-from sassy_jax import profiles
-from sassy_jax.ops.myers_xla import XlaEngine
-from sassy_jax.search import NumpyEngine
+from sassy_tpu import profiles
+from sassy_tpu.ops.myers_xla import XlaEngine
+from sassy_tpu.search import NumpyEngine
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -71,7 +71,7 @@ def test_oneshot_threshold_respected():
 
 
 def test_oneshot_pallas_interpret():
-    from sassy_jax.ops.myers_pallas import PallasEngine
+    from sassy_tpu.ops.myers_pallas import PallasEngine
 
     rng = np.random.default_rng(2)
     prof = profiles.Iupac()

@@ -13,9 +13,9 @@ Default runs use hundreds of cases; ``pytest -m soak`` scales to 10k+.
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, profiles, refcost
-from sassy_jax.oracle import end_costs as np_end_costs
-from sassy_jax.profiles import as_bytes_array
+from sassy_tpu import Searcher, profiles, refcost
+from sassy_tpu.oracle import end_costs as np_end_costs
+from sassy_tpu.profiles import as_bytes_array
 
 pytestmark = pytest.mark.skipif(
     refcost.load() is None, reason="native refcost library unavailable"

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from sassy_jax import Searcher, profiles
-from sassy_jax.cigar import Cigar
-from sassy_jax.matchrec import Strand
-from sassy_jax.pretty_print import (
+from sassy_tpu import Searcher, profiles
+from sassy_tpu.cigar import Cigar
+from sassy_tpu.matchrec import Strand
+from sassy_tpu.pretty_print import (
     PrettyPrintDirection,
     PrettyPrintStyle,
     pretty_print,
@@ -162,8 +162,8 @@ def test_amplicon_crash():
 
 def test_sam_cigar_formatting():
     """grep.rs sam_output: RC cigars reversed only in --sam mode."""
-    from sassy_jax.cli import _format_cigar
-    from sassy_jax.matchrec import Match
+    from sassy_tpu.cli import _format_cigar
+    from sassy_tpu.matchrec import Match
 
     cigar = Cigar.from_string("2=1X3D")
     m = Match(strand=Strand.RC, cigar=cigar)
@@ -181,9 +181,9 @@ def test_tile_boundary_lookahead():
     past it) must suppress the boundary position as a non-minimum."""
     import numpy as np
 
-    from sassy_jax import profiles
-    from sassy_jax.ops.myers_xla import XlaEngine
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu import profiles
+    from sassy_tpu.ops.myers_xla import XlaEngine
+    from sassy_tpu.search import NumpyEngine
 
     prof = profiles.Iupac()
     rng = np.random.default_rng(0)
@@ -209,10 +209,10 @@ def test_plateau_state_across_restarts():
     (ops/minima.py tile_state_chain) / all_gather (parallel/sharded.py)."""
     import numpy as np
 
-    from sassy_jax import profiles
-    from sassy_jax.ops.batch import BatchEngine
-    from sassy_jax.ops.myers_xla import XlaEngine
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu import profiles
+    from sassy_tpu.ops.batch import BatchEngine
+    from sassy_tpu.ops.myers_xla import XlaEngine
+    from sassy_tpu.search import NumpyEngine
 
     prof = profiles.Iupac()
     rng = np.random.default_rng(99)
@@ -251,9 +251,9 @@ def test_overhang_tail_restart_margin():
     missing suffix-overhang minima at n+1/n+3)."""
     import numpy as np
 
-    from sassy_jax import profiles
-    from sassy_jax.ops.myers_xla import XlaEngine
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu import profiles
+    from sassy_tpu.ops.myers_xla import XlaEngine
+    from sassy_tpu.search import NumpyEngine
 
     prof = profiles.Iupac()
     pat = np.frombuffer(b"GMMRGC", np.uint8)
@@ -272,9 +272,9 @@ def test_overhang_batch_piece_boundaries():
     which covers the single-pattern tail tile)."""
     import numpy as np
 
-    from sassy_jax import profiles
-    from sassy_jax.ops.batch import BatchEngine
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu import profiles
+    from sassy_tpu.ops.batch import BatchEngine
+    from sassy_tpu.search import NumpyEngine
 
     prof = profiles.Iupac()
     rng = np.random.default_rng(7)
@@ -310,10 +310,10 @@ def test_boundary_candidate_screened():
     the cost-0 candidate at position 0)."""
     import numpy as np
 
-    from sassy_jax import profiles
-    from sassy_jax.ops.batch import BatchEngine
-    from sassy_jax.ops.myers_xla import XlaEngine
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu import profiles
+    from sassy_tpu.ops.batch import BatchEngine
+    from sassy_tpu.ops.myers_xla import XlaEngine
+    from sassy_tpu.search import NumpyEngine
 
     prof = profiles.Iupac()
     rng = np.random.default_rng(17)

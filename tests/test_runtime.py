@@ -3,8 +3,8 @@ diagnostics."""
 
 import numpy as np
 
-from sassy_jax import Searcher, profiles
-from sassy_jax.scan import GenomeScan
+from sassy_tpu import Searcher, profiles
+from sassy_tpu.scan import GenomeScan
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -71,7 +71,7 @@ def test_scan_segment_boundary_exactness(tmp_path):
 
 
 def test_multihost_single_process():
-    from sassy_jax.parallel import multihost
+    from sassy_tpu.parallel import multihost
 
     multihost.initialize()  # no-op single process
     lo, hi = multihost.host_shard_of(10)
@@ -82,7 +82,7 @@ def test_multihost_single_process():
     pats = [rng.choice(BASES, size=16) for _ in range(2)]
     prof = profiles.Iupac()
     got = multihost.global_search(prof, pats, text, 2)
-    from sassy_jax.search import NumpyEngine
+    from sassy_tpu.search import NumpyEngine
 
     oracle = NumpyEngine()
     for pat, cands in zip(pats, got):
@@ -91,7 +91,7 @@ def test_multihost_single_process():
 
 
 def test_diagnostics():
-    from sassy_jax.diagnostics import cost_model, self_test
+    from sassy_tpu.diagnostics import cost_model, self_test
 
     info = self_test(text_bytes=20_000, verbose=False)
     assert info["throughput_gbps"] > 0

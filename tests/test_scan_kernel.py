@@ -9,16 +9,16 @@ chip_smoke.py (phase "kernel").
 import numpy as np
 import pytest
 
-from sassy_jax.ops import CACHE_DIR, cache_dir
-from sassy_jax.ops.backend import choose_scan
-from sassy_jax.ops.myers_pallas import (
+from sassy_tpu.ops import CACHE_DIR, cache_dir
+from sassy_tpu.ops.backend import choose_scan
+from sassy_tpu.ops.myers_pallas import (
     LANE_BLOCK,
     UNROLL_ROWS,
     PallasEngine,
     pad_lanes,
     scan_q,
 )
-from sassy_jax.profiles import Ascii, Iupac
+from sassy_tpu.profiles import Ascii, Iupac
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -27,8 +27,8 @@ def _reference(win, tile0, pm, ip, hi, m, bm, vf, vt, k, eq_mode):
     import jax
     import jax.numpy as jnp
 
-    from sassy_jax.ops.minima import meta_from_words
-    from sassy_jax.ops.myers_xla import _kernels
+    from sassy_tpu.ops.minima import meta_from_words
+    from sassy_tpu.ops.myers_xla import _kernels
 
     scan_core = _kernels()["scan_core"]
     outs = []
@@ -49,7 +49,7 @@ def _case(profile, patterns, text, W, halo, alpha=None, seed=0):
     shaped as the engines build them."""
     import jax.numpy as jnp
 
-    from sassy_jax.ops.myers_xla import (
+    from sassy_tpu.ops.myers_xla import (
         PreparedText,
         _kernels,
         pattern_inputs_np,
@@ -151,6 +151,18 @@ def test_pad_lanes(t, want):
     assert pad_lanes(t) == want
 
 
+@pytest.mark.parametrize("backend,t,want", [
+    ("pallas", 1, LANE_BLOCK), ("pallas", LANE_BLOCK + 1, 2 * LANE_BLOCK),
+    ("xla", 1, 1), ("xla", LANE_BLOCK + 1, LANE_BLOCK + 1),
+])
+def test_pad_lanes_for_backend(backend, t, want):
+    """Only the kernel pads lanes; the XLA scan takes any lane count."""
+    from sassy_tpu.ops.backend import lane_multiple, pad_lanes_for
+
+    assert pad_lanes_for(backend, t) == want
+    assert lane_multiple(backend) == (LANE_BLOCK if backend == "pallas" else 1)
+
+
 @pytest.mark.parametrize("n,m,k", [(1000, 23, 3), (3_000_000, 23, 3),
                                    (200_000, 200, 10), (5_000_000, 1000, 40)])
 def test_pallas_plan_pads_lanes_and_bounds_halo(n, m, k):
@@ -171,7 +183,7 @@ def test_pallas_plan_pads_lanes_and_bounds_halo(n, m, k):
 
 
 def test_batch_plan_pads_pieces_to_lane_blocks():
-    from sassy_jax.ops.batch import BatchEngine, TextSet
+    from sassy_tpu.ops.batch import BatchEngine, TextSet
 
     rng = np.random.default_rng(8)
     ts = TextSet([rng.choice(BASES, size=n) for n in (70_000, 333, 12_345)])
@@ -185,7 +197,7 @@ def test_batch_plan_pads_pieces_to_lane_blocks():
 
 
 def test_batch_plan_keeps_chunk_positions_in_int32():
-    from sassy_jax.ops.batch import BatchEngine, TextSet
+    from sassy_tpu.ops.batch import BatchEngine, TextSet
 
     ts = TextSet.__new__(TextSet)
     ts.texts, ts.lens, ts._packs = [], [3_000_000_000], {}
@@ -215,10 +227,10 @@ def test_choose_scan_refuses_other_platforms(monkeypatch):
 
 
 def test_engines_follow_the_decision_on_cpu():
-    from sassy_jax.ops.batch import BatchEngine
-    from sassy_jax.ops.myers_xla import XlaEngine
-    from sassy_jax.parallel import ShardedSearch
-    from sassy_jax.search import make_engine
+    from sassy_tpu.ops.batch import BatchEngine
+    from sassy_tpu.ops.myers_xla import XlaEngine
+    from sassy_tpu.parallel import ShardedSearch
+    from sassy_tpu.search import make_engine
 
     assert isinstance(make_engine("auto"), XlaEngine)
     assert make_engine("auto").backend == "xla"

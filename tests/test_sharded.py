@@ -7,9 +7,9 @@ validation path the driver's dryrun_multichip uses.
 import numpy as np
 import pytest
 
-from sassy_jax.parallel import ShardedSearch, make_mesh
-from sassy_jax.profiles import Dna, Iupac
-from sassy_jax.search import NumpyEngine
+from sassy_tpu.parallel import ShardedSearch, make_mesh
+from sassy_tpu.profiles import Dna, Iupac
+from sassy_tpu.search import NumpyEngine
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -134,3 +134,37 @@ def test_sharded_hier_prefilter_interpret():
                 prof, prof.encode(pat), text, k, None, None, allm
             )
             assert sorted(map(tuple, cands)) == sorted(map(tuple, want)), allm
+
+
+@pytest.mark.parametrize("batch", [1, 2, None])
+def test_sharded_overhang_batch_matches_oracle(monkeypatch, batch):
+    """The overhang path gives the oracle's candidates whether its local
+    patterns run one at a time, in batches with a remainder, or sized
+    from the shard."""
+    from sassy_tpu.parallel import sharded
+
+    if batch is not None:
+        monkeypatch.setattr(sharded, "overhang_batch_for", lambda p, q: batch)
+    ss = ShardedSearch(mesh=_mesh(4))
+    rng = np.random.default_rng(11)
+    prof = Iupac()
+    text = rng.choice(BASES, size=2500)
+    pats = [rng.choice(BASES, size=17) for _ in range(3)]
+    text[40:57] = pats[1]
+    got = ss.candidates_batch(prof, pats, text, 3, alpha=0.5)
+    for pat, cands in zip(pats, got):
+        want = NumpyEngine().candidates(
+            prof, prof.encode(pat), text, 3, 0.5, None, False
+        )
+        assert sorted(cands) == sorted(want)
+
+
+@pytest.mark.parametrize(
+    "positions,q_local,want",
+    [(32_050_176, 32, 8), (780_000_000, 32, 1), (1000, 32, 32), (1000, 5, 4),
+     (1000, 1, 1)],
+)
+def test_overhang_batch_for(positions, q_local, want):
+    from sassy_tpu.parallel.sharded import overhang_batch_for
+
+    assert overhang_batch_for(positions, q_local) == want

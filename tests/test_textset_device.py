@@ -9,8 +9,8 @@ device because the host->device link dominates fresh-text searches."""
 import numpy as np
 import pytest
 
-from sassy_jax.ops.batch import BatchEngine, TextSet
-from sassy_jax.profiles import Iupac
+from sassy_tpu.ops.batch import BatchEngine, TextSet
+from sassy_tpu.profiles import Iupac
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -24,7 +24,7 @@ def _force_device_path(monkeypatch):
 def test_reverse_planes_matches_host_pack():
     import jax.numpy as jnp
 
-    from sassy_jax.ops.myers_xla import _bucket_words, _cdiv, _kernels
+    from sassy_tpu.ops.myers_xla import _bucket_words, _cdiv, _kernels
 
     rng = np.random.default_rng(9)
     prof = Iupac()
@@ -68,7 +68,7 @@ def test_batch_device_assembly_and_reverse_parity():
 
 
 def test_search_many_rc_uses_shared_textset():
-    from sassy_jax import Searcher, profiles as P
+    from sassy_tpu import Searcher, profiles as P
 
     rng = np.random.default_rng(21)
     texts = [bytes(rng.choice(BASES, size=n)) for n in (30000, 9000)]
@@ -86,7 +86,7 @@ def test_search_many_rc_uses_shared_textset():
             for m in ms
         )
 
-    from sassy_jax.ops.myers_pallas import PallasEngine
+    from sassy_tpu.ops.myers_pallas import PallasEngine
 
     sp = Searcher(P.Iupac(), rc=True, engine=PallasEngine(interpret=True))
     sn = Searcher(P.Iupac(), rc=True, engine="numpy")

@@ -8,9 +8,9 @@ text reuse (search.rs caches the encoded text profile across calls)."""
 import numpy as np
 import pytest
 
-from sassy_jax.ops.myers_pallas import PallasEngine
-from sassy_jax.profiles import Iupac
-from sassy_jax.search import make_engine
+from sassy_tpu.ops.myers_pallas import PallasEngine
+from sassy_tpu.profiles import Iupac
+from sassy_tpu.search import make_engine
 
 
 @pytest.fixture(scope="module")
@@ -78,8 +78,8 @@ def test_hier_branch_with_cached_windows_interpret():
     Pallas backend, vs the same call without caches."""
     import numpy as np
 
-    from sassy_jax.ops.myers_xla import _kernels
-    from sassy_jax.profiles import Iupac
+    from sassy_tpu.ops.myers_xla import _kernels
+    from sassy_tpu.profiles import Iupac
 
     prof = Iupac()
     rng = np.random.default_rng(3)
